@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Batch-decode a recorded capture file through the capture megagraph.
 
-The TPU-native workflow with no reference equivalent: instead of
-replaying a recording through the streaming chain in real-time order
+A batch workflow with no reference equivalent: instead of replaying a
+recording through the streaming chain in real-time order
 (examples/rx.py), decode the WHOLE capture in one batched device call —
-detection, timing sync, equalization, universal any-rate payload decode —
-at 100+ Msample/s on a single chip (models/frontend.receive_capture*).
+detection, timing sync, equalization, universal any-rate payload decode
+(models/frontend.receive_capture*).
 
 Usage:
   python examples/tx.py out.c64 --count 20        # record some frames

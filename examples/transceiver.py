@@ -30,7 +30,7 @@ import numpy as np
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--message", default="Hello from the TPU transceiver!")
+    ap.add_argument("--message", default="Hello from the transceiver!")
     ap.add_argument("--count", type=int, default=10)
     ap.add_argument("--rate", default="RATE_1_2_QPSK")
     ap.add_argument("--snr", type=float, default=None, help="AWGN SNR (dB)")

@@ -1,4 +1,4 @@
-"""fun_ofdm_tpu: a TPU-native 802.11a OFDM PHY in JAX/XLA/Pallas.
+"""fun_ofdm_tpu: an 802.11a OFDM PHY in JAX/XLA/Pallas for NVIDIA GPUs.
 
 A from-scratch reimplementation of the capabilities of the C++/USRP
 reference `bmorgan5/fun_ofdm` as pure, batched, shardable array programs:

@@ -3,13 +3,13 @@
 The public surface of the framework, mirroring the reference's two
 exported classes (src/transmitter.h:49-73, src/receiver.h:58-83) with the
 same ergonomics — `Transmitter.send_frame(payload, rate)` and
-`Receiver(callback)` with `pause()`/`resume()` — over the TPU-native
+`Receiver(callback)` with `pause()`/`resume()` — over the device
 stack: jitted batched frame building (models/tx), the streaming
 ReceiverChain runtime (runtime/chain), and pluggable sample I/O backends
 (runtime/io) in place of the USRP.
 
-TPU-native extension beyond the reference: `send_burst(payloads, rate)`
-builds a whole batch of frames in one device call (the MXU-efficient
+Extension beyond the reference: `send_burst(payloads, rate)`
+builds a whole batch of frames in one device call (the efficient
 path — per-frame calls exist for parity, batched calls for throughput).
 """
 
@@ -65,7 +65,7 @@ class Transmitter:
 
     def send_burst(self, payloads: Sequence, rate) -> int:
         """Build a whole burst of frames in ONE batched device call per
-        rate and send them back-to-back in order (TPU-native batch
+        rate and send them back-to-back in order (the batched device
         path). Payload lengths may differ (the reference transmitter's
         per-frame flexibility, src/transmitter.cpp:33-37): equal-length
         bursts take the static builder; mixed bursts take the
@@ -187,7 +187,7 @@ class Receiver:
                  cfo_correct: bool = False,
                  start: bool = True,
                  ingest_dtype: str = "float32",
-                 viterbi_impl: str | None = None,
+                 viterbi_impl: str = "auto",
                  decode_mode: str = "auto"):
         self.callback = callback
         self.source = source if source is not None else LoopbackRadio(params)

@@ -1,6 +1,6 @@
 // fun_ofdm_tpu native streaming runtime.
 //
-// TPU-native equivalent of the reference's native runtime layer: the
+// Host-side equivalent of the reference's native runtime layer: the
 // semaphore-driven sample transport of usrp.cpp (send_burst/get_samples,
 // reference src/usrp.cpp:91-130) and the carryover/buffer-swap machinery of
 // receiver_chain.cpp (reference src/receiver_chain.cpp:106-126,

@@ -1,6 +1,6 @@
 """RX front-end: frame detection and timing sync as batched array ops.
 
-TPU-native recast of the reference's frame_detector + timing_sync stages
+Array-program recast of the reference's frame_detector + timing_sync stages
 (src/frame_detector.cpp:41-92, src/timing_sync.cpp:51-139): instead of a
 stateful per-sample walk, the whole capture is processed at once -
 autocorrelation ratios, plateau events, LTS matched filtering and peak
@@ -39,19 +39,17 @@ def _first_k_true(mask: jnp.ndarray, k: int,
     Returns (pos (k,) int32 with n as fill, valid (k,) bool, dropped ()
     int32 — events lost to the blocked extractor's per-block cap; always 0
     on the exact one-hot path). Equivalent to
-    jnp.nonzero(mask, size=k, fill_value=n) but XLA lowers that to a slow
-    sequential custom-call on TPU (~2 ms on a 236k stream); here slot
-    positions come from one (k, n) one-hot-of-rank matmul on the MXU
-    (exact: positions < 2^24 in f32). For large k*n (the streaming
-    superstep: megasample windows with thousands of slots) the one-hot
-    would materialize gigabytes, so a blocked two-level extraction takes
-    over (measured 4.8 ms at n=1M, k=2200 on v5e vs OOM for the one-hot).
+    jnp.nonzero(mask, size=k, fill_value=n), without its sequential
+    lowering; here slot positions come from one (k, n) one-hot-of-rank
+    matmul (exact: positions < 2^24 in full f32). For large k*n (the
+    streaming superstep: megasample windows with thousands of slots) the
+    one-hot would materialize gigabytes, so a blocked two-level
+    extraction takes over.
     """
     n = mask.shape[-1]
     if n > _BLOCKED_MIN_N:
         # the blocked two-level extractor is the default: the one-hot
-        # form needs a full-stream prefix-sum scan (one of the capture
-        # megagraph's biggest non-kernel blocks, docs/NOTES_r5.md) and
+        # form needs a full-stream prefix-sum scan and
         # a (k, n) one-hot product; events denser than the per-block cap
         # are dropped AND counted (the documented capacity - only noise
         # produces >16 LTS-reachable events per 512 samples). Tiny
@@ -63,7 +61,10 @@ def _first_k_true(mask: jnp.ndarray, k: int,
     slot = jnp.where(mask, rank, k)  # k = "no slot"
     onehot = (slot[None, :] == jnp.arange(k, dtype=jnp.int32)[:, None])
     idx = jnp.arange(n, dtype=jnp.float32)
+    # full f32: positions up to ~2^24 must come back exact (TF32 keeps
+    # 10 mantissa bits)
     pos = jnp.dot(onehot.astype(jnp.float32), idx,
+                  precision=jax.lax.Precision.HIGHEST,
                   preferred_element_type=jnp.float32)
     count = jnp.sum(mask.astype(jnp.int32), axis=-1)
     valid = jnp.arange(k, dtype=jnp.int32) < count

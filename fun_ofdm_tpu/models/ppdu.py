@@ -318,11 +318,11 @@ def _anyrate_coded_select(samples, rates, ridx, n_coded_max):
     """Per-frame coded soft stream via STATIC per-rate pipelines + select.
 
     The gather-table strategy pays one ~2*nbits_max-index dynamic
-    take_along_axis per frame (measured ~4.5x the per-symbol cost of the
-    static single-rate pipeline, docs/NOTES_r5.md); here each configured
-    rate's demod -> deinterleave -> depuncture runs as the SAME static
-    ops the single-rate decoder uses (fixed permutations XLA folds into
-    layouts), and an R-way elementwise select by the frame's header rate
+    take_along_axis per frame (several times the per-symbol cost of the
+    static single-rate pipeline on the earlier accelerator); here each
+    configured rate's demod -> deinterleave -> depuncture runs as the SAME
+    static ops the single-rate decoder uses (fixed permutations XLA folds
+    into layouts), and an R-way elementwise select by the frame's header rate
     picks the stream. Output-identical to the gather table: coded slots
     past a frame's real extent differ only where the dynamic-length
     Viterbi masks them.
@@ -373,9 +373,9 @@ def decode_data_anyrate_p(samples, rates: tuple[Rate, ...], rate_idx,
     running every configured rate's STATIC demod/deinterleave/depuncture
     pipeline and selecting by header rate; "gather" uses the fused
     per-rate gather tables over the 13-wide all-modulation soft vector.
-    Identical outputs; select measures ~2x faster on TPU (the dynamic
-    per-frame gather is the anyrate decoder's dominant cost,
-    docs/NOTES_r5.md). FUN_OFDM_ANYRATE overrides.
+    Identical outputs; select was the faster one on the earlier
+    accelerator, and the GPU A/B is ROADMAP Design #4.
+    FUN_OFDM_ANYRATE overrides.
 
     Returns (payload (..., max_length), crc_ok, service, viterbi_exact).
     """

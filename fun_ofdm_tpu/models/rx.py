@@ -2,10 +2,9 @@
 
 This is the reference RX chain stages 3-6 (fft_symbols, channel_est,
 phase_tracker, frame_decoder -> ppdu decode) recast as one pure batched
-function over planar (re, im) sample streams (the TPU backend has no
-complex dtypes; see ops/cplx.py). The streaming front-end (frame
-detection / timing sync) lives in models/frontend.py and produces the
-start offsets consumed here.
+function over planar (re, im) sample streams (see ops/cplx.py). The
+streaming front-end (frame detection / timing sync) lives in
+models/frontend.py and produces the start offsets consumed here.
 
 Geometry (see preamble.py): relative to the preamble start P the reference
 extracts every 64-sample symbol body 8 samples early (inside its cyclic
@@ -41,10 +40,10 @@ def extract_symbols_p(samples: CArr, start, num_symbols: int):
     Returns (lts (..., 2, 64), syms (..., 1+num_symbols, 64)), both planar.
 
     Uses batched `dynamic_slice` + pad/reshape (NOT an advanced gather):
-    measured in the fused capture megagraph, gather-based extraction is
-    ~5x slower than the slice form, even though a standalone
-    microbenchmark says the opposite - XLA fuses the slice into its
-    consumers but materializes the gather (docs/NOTES_r4.md). The slice
+    on the earlier accelerator, gather-based extraction was slower than
+    the slice form in the fused capture megagraph (XLA fused the slice
+    into its consumers but materialized the gather); the A/B on the GPU
+    is ROADMAP Speed #4. The slice
     start is clamped, so callers pad their streams (a genuinely
     truncated frame reads edge garbage and fails CRC, same as the
     reference fed a truncated stream).
@@ -59,14 +58,10 @@ def extract_symbols_p(samples: CArr, start, num_symbols: int):
     body_len = (nsym_total - 1) * 80 + 64
 
     if os.environ.get("FUN_OFDM_EXTRACT", "slice") == "gather":
-        # A/B-only alternative, measured 3.5x SLOWER end-to-end (50 vs
-        # 178 Msample/s on the capture megagraph, docs/NOTES_r5.md):
-        # the batched row-gather materializes catastrophically on TPU
-        # even though the slice form's vmapped dynamic_slice lowers to
-        # a sequential while of small DMAs (~3.5 ms at 512 frames).
-        # Kept (env FUN_OFDM_EXTRACT=gather) as the documented negative
-        # result - the while-of-DMAs IS the fast formulation here,
-        # confirming r4's finding at the production shape.
+        # A/B-only alternative (env FUN_OFDM_EXTRACT=gather): the
+        # batched row-gather, slower than the slice form on the earlier
+        # accelerator; to be measured once on the GPU and settled
+        # (ROADMAP Design #4).
         lts_idx = (np.array([pre.LTS1_OFFSET, pre.LTS2_OFFSET])[:, None]
                    + np.arange(64)[None, :])
         sym_idx = (pre.SYMBOL0_OFFSET + 80 * np.arange(nsym_total)[:, None]

@@ -1,13 +1,12 @@
 """TX frame builder: payload bytes -> baseband time-domain frame.
 
-TPU-native equivalent of the reference frame_builder
+Device equivalent of the reference frame_builder
 (src/frame_builder.cpp:53-82): ppdu encode -> subcarrier map -> batched
-64-pt IFFT (planar DFT matmuls on the MXU) -> cyclic-prefix insert ->
+64-pt IFFT (planar DFT matmuls) -> cyclic-prefix insert ->
 preamble prepend, as one pure jitted function over batched frames. All
 shapes are static per (rate, payload length); batch via leading dims.
 
-The device path is planar (re, im) float - the target TPU backend has no
-complex-dtype support, and planar layout tiles better anyway. The complex
+The device path is planar (re, im) float (ops/cplx.py). The complex
 `build_frame` wrapper is for host-side/test use.
 """
 

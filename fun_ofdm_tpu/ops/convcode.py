@@ -5,7 +5,7 @@ The reference encodes bit-serially through a shift register
 data bits MSB-first, and for each input bit emits
 parity(sr & poly_k) for k in {0, 1}.
 
-TPU formulation: output bit pair at time i is the GF(2) inner product of the
+Array formulation: output bit pair at time i is the GF(2) inner product of the
 last 7 input bits with the polynomial taps - i.e. a mod-2 convolution. We
 compute it as an integer correlation against the tap patterns followed by
 &1, which XLA vectorizes; no scan, no sequential dependency.

@@ -1,12 +1,12 @@
 """Sliding-window correlators for the RX front-end (planar complex).
 
-TPU-native replacements for the reference's per-sample loops:
+Data-parallel replacements for the reference's per-sample loops:
 
   * STS autocorrelation + power (reference: src/frame_detector.cpp:47-63,
     src/circular_accumulator.h) -> windowed sums built from shifted adds
     (exact per-window arithmetic - no long cumsum error accumulation).
   * plateau detection (reference: src/frame_detector.cpp:65-82) -> a
-    trailing-window count on the MXU instead of a stateful counter.
+    trailing-window count (a matmul) instead of a stateful counter.
   * 64-tap LTS cross-correlation (reference: src/timing_sync.cpp:74-86)
     -> 64 shifted scaled adds over the whole stream (fusable elementwise).
 
@@ -26,21 +26,11 @@ from .. import preamble as pre
 from .cplx import CArr
 
 
-def _mm_precision():
-    """Matmul precision for the correlator banks.
-
-    HIGH (3-pass bf16) is the default: ~1e-6 relative error on these
-    O(1) normalized metrics - f32-grade, far below any threshold margin
-    (the 0.9 detection thresholds see noise-driven variations orders of
-    magnitude larger) - at half HIGHEST's MXU cost (measured +4% on the
-    dense capture megagraph). FUN_OFDM_CORR_PRECISION overrides:
-    "highest" = full 6-pass f32 emulation, "default" = single-pass bf16
-    (~0.4% error - fast but can flip genuinely marginal detections, so
-    never the default).
-    """
-    import os
-    name = os.environ.get("FUN_OFDM_CORR_PRECISION", "high").upper()
-    return getattr(jax.lax.Precision, name)
+#: matmul precision of the correlator banks: full f32. On a GPU a lower
+#: precision runs f32 products in TF32 (10-bit mantissa, ~3 digits),
+#: which is coarse for metrics compared against 0.9 thresholds and for
+#: window sums over stream positions.
+PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _trailing_window_sum(x: jnp.ndarray, w: int) -> jnp.ndarray:
@@ -49,10 +39,9 @@ def _trailing_window_sum(x: jnp.ndarray, w: int) -> jnp.ndarray:
     Polyphase matmul (same structure as the LTS correlator below): with
     n = w*q + r the window splits between row q (columns <= r) and row
     q-1 (columns > r), i.e. one (n/w, w) @ (w, w) product against each
-    triangle of an all-ones matrix, on the MXU. Exact per-window sums (no
-    cumsum drift); f32 accumulation at Precision.HIGHEST. Replaces the
-    round-2 unrolled shifted adds (w full-array VPU passes;
-    docs/NOTES_r3.md).
+    triangle of an all-ones matrix. Exact per-window sums (no cumsum
+    drift); f32 accumulation at Precision.HIGHEST. Replaces w unrolled
+    full-array shifted adds.
     """
     q = -(-x.shape[-1] // w)
     padlen = q * w - x.shape[-1]
@@ -68,7 +57,7 @@ def _trailing_window_sum(x: jnp.ndarray, w: int) -> jnp.ndarray:
     def mm(rr, m):
         return jax.lax.dot_general(
             rr, m, (((rr.ndim - 1,), (0,)), ((), ())),
-            precision=_mm_precision(),
+            precision=PRECISION,
             preferred_element_type=jnp.float32)
 
     y = mm(rows[..., 1:, :], tri_a) + mm(rows[..., :-1, :], tri_b)
@@ -116,10 +105,8 @@ def sts_end_events(ratio: jnp.ndarray, threshold: float,
 
     run_length[n-1] >= L is exactly "the L samples before n are all
     above", i.e. an L-trailing-window count equal to L - so the test
-    rides the same polyphase MXU window-sum as the autocorrelator
-    instead of a log-depth cummax scan over the whole stream (the scan
-    was one of the capture megagraph's biggest non-kernel blocks,
-    docs/NOTES_r5.md).
+    rides the same polyphase window-sum matmul as the autocorrelator
+    instead of a log-depth cummax scan over the whole stream.
     """
     above = ratio > threshold
     cnt = _trailing_window_sum(above.astype(jnp.float32), plateau_len)
@@ -134,7 +121,7 @@ def _leading_window_sum(x: jnp.ndarray, w: int) -> jnp.ndarray:
 
     Mirror of _trailing_window_sum: with n = w*q + r the window splits
     between row q (columns >= r) and row q+1 (columns < r) - two
-    polyphase matmuls against complementary triangles on the MXU.
+    polyphase matmuls against complementary triangles.
     """
     q = -(-x.shape[-1] // w)
     padlen = (q + 1) * w - x.shape[-1]
@@ -149,7 +136,7 @@ def _leading_window_sum(x: jnp.ndarray, w: int) -> jnp.ndarray:
     def mm(rr, m):
         return jax.lax.dot_general(
             rr, m, (((rr.ndim - 1,), (0,)), ((), ())),
-            precision=_mm_precision(),
+            precision=PRECISION,
             preferred_element_type=jnp.float32)
 
     y = mm(rows[..., :q, :], tri_a) + mm(rows[..., 1:, :], tri_b)
@@ -159,17 +146,15 @@ def _leading_window_sum(x: jnp.ndarray, w: int) -> jnp.ndarray:
 def leading_window_any(mask: jnp.ndarray, w: int) -> jnp.ndarray:
     """out[n] = any(mask[n : n+w]) (False past the end). Shape-preserving.
 
-    Polyphase MXU window count (exact: small integer counts in f32)
-    instead of the round-3 cumsum form - the log-depth scan over the
-    whole stream was one of the capture megagraph's biggest non-kernel
-    blocks (docs/NOTES_r5.md).
+    Polyphase matmul window count (exact: small integer counts in f32)
+    instead of a log-depth cumsum scan over the whole stream.
     """
     return _leading_window_sum(mask.astype(jnp.float32), w) > 0.5
 
 
 @functools.lru_cache(maxsize=None)
 def _lts_polyphase_taps(segments: int = 1):
-    """Static polyphase tap matrices for the MXU correlation.
+    """Static polyphase tap matrices for the matmul correlation.
 
     A[c, r] = taps[c - r] for c >= r (row q's contribution to output
     phase r), B[c, r] = taps[64 + c - r] for c < r (row q+1's); the
@@ -222,14 +207,12 @@ def lts_correlation(x: CArr, segments: int = 1) -> jnp.ndarray:
     Noise raises the noncoherent floor ~2x, so this stays opt-in
     (ChainParams.lts_segments) for CFO-impaired deployments.
 
-    Polyphase MXU formulation: with p = 64q + r, y[64q+r] splits into two
-    (n/64, 64) @ (64, 64) matmuls (row q against a lower-triangular tap
-    matrix, row q+1 against the complementary upper triangle) — the
-    correlation rides the systolic array instead of 64 unrolled VPU
-    multiply-adds, and the window power uses the same split with all-ones
-    taps. Replaces the round-2 unrolled form (the dominant cost of the
-    detect pass: 6.3 ms -> see docs/NOTES_r3.md); f32 accumulation at
-    Precision.HIGHEST keeps threshold comparisons stable.
+    Polyphase matmul formulation: with p = 64q + r, y[64q+r] splits into
+    two (n/64, 64) @ (64, 64) matmuls (row q against a lower-triangular
+    tap matrix, row q+1 against the complementary upper triangle) instead
+    of 64 unrolled multiply-adds, and the window power uses the same split
+    with all-ones taps. f32 accumulation at Precision.HIGHEST keeps
+    threshold comparisons stable.
     """
     re, im = x
     n = re.shape[-1]
@@ -247,7 +230,7 @@ def lts_correlation(x: CArr, segments: int = 1) -> jnp.ndarray:
         return jax.lax.dot_general(
             rows, jnp.asarray(m),
             (((rows.ndim - 1,), (0,)), ((), ())),
-            precision=_mm_precision(),
+            precision=PRECISION,
             preferred_element_type=jnp.float32)
 
     r0_r, r1_r = xr[..., :q, :], xr[..., 1:, :]

@@ -1,10 +1,10 @@
 """Planar complex arithmetic: (re, im) pairs of real arrays.
 
-The TPU device path never touches jnp.complex64: complex dtypes are
-unsupported on the target backend, and planar layout is better for the
-hardware anyway - the trailing axis stays a full tile of samples /
-subcarriers instead of interleaved re/im, and DFTs become real matmuls on
-the MXU (see ops/fft64.py).
+The device path never touches jnp.complex64: the convention dates from a
+backend without complex dtypes, and it keeps the trailing axis a full
+tile of samples / subcarriers instead of interleaved re/im, with DFTs as
+real matmuls (see ops/fft64.py). Whether complex64 + jnp.fft beats it on
+the GPU is ROADMAP Design #6.
 
 Convention: a planar complex array is a plain tuple `(re, im)` of
 equal-shaped float arrays. Host-side helpers convert to/from numpy/jnp

@@ -4,8 +4,8 @@ The reference uses boost::crc_32_type (poly 0x04C11DB7 reflected, init/final
 0xFFFFFFFF - identical to zlib.crc32) over [service|payload] and appends the
 checksum little-endian (reference: src/ppdu.cpp:134-137, 266-279).
 
-A byte-serial CRC is a terrible fit for the TPU (one tiny gather per scan
-step), so we exploit GF(2) linearity: the state update for one byte,
+A byte-serial CRC is a terrible fit for an accelerator (one tiny gather
+per scan step), so we exploit GF(2) linearity: the state update for one byte,
 ``s' = T[(s ^ b) & 0xFF] ^ (s >> 8)``, is affine in (s, b). We precompute,
 for a block of W bytes, per-position tables ``BLK[j][b] = L^(8*(W-1-j))(c(b))``
 plus shift tables for the state, turning the whole CRC into a
@@ -22,6 +22,10 @@ import jax.numpy as jnp
 import numpy as np
 
 _POLY = 0xEDB88320  # reflected 0x04C11DB7
+#: the bit-matrix products have 0/1 operands and integer sums < 2^24, so
+#: they are exact at any matmul precision (TF32 and bf16 hold 0 and 1
+#: exactly and accumulate in f32); the cheapest one is asked for
+_PRECISION = jax.lax.Precision.DEFAULT
 BLOCK = 32  # bytes folded per scan step
 
 
@@ -107,7 +111,7 @@ def _bit_matrix(n: int) -> np.ndarray:
     """(8n, 32) float 0/1: row 8j+i = L^(8(n-1-j))(T[1<<i]) bit-expanded.
 
     CRC-32 is GF(2)-linear in the message bits, so the whole checksum is
-    one 0/1 matmul mod 2 - MXU work instead of a byte-serial gather scan.
+    one 0/1 matmul mod 2 instead of a byte-serial gather scan.
     Bit i here is the i-th LSB of byte j.
     """
     cols = _shift8_matrix()
@@ -141,7 +145,8 @@ def crc32(data: jnp.ndarray) -> jnp.ndarray:
     bits = bits.reshape(batch_shape + (8 * n,)).astype(jnp.float32)
 
     w = jnp.asarray(_bit_matrix(n))
-    acc = jnp.dot(bits, w, preferred_element_type=jnp.float32)
+    acc = jnp.dot(bits, w, precision=_PRECISION,
+                  preferred_element_type=jnp.float32)
     state_bits = jnp.mod(acc, 2.0).astype(jnp.uint32)  # (..., 32)
 
     weights = jnp.asarray(
@@ -196,7 +201,8 @@ def crc32_dynamic(data: jnp.ndarray, n_valid: jnp.ndarray) -> jnp.ndarray:
     bits = bits.reshape(data.shape[:-1] + (8 * n_max,)).astype(jnp.float32)
     w = jnp.asarray(_bit_matrix(n_max))
     state_bits = jnp.mod(
-        jnp.dot(bits, w, preferred_element_type=jnp.float32), 2.0
+        jnp.dot(bits, w, precision=_PRECISION,
+                preferred_element_type=jnp.float32), 2.0
     ).astype(jnp.uint32)
     weights = jnp.asarray(
         np.array([1 << k for k in range(32)], dtype=np.uint32))

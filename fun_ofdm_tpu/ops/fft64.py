@@ -4,11 +4,11 @@ The reference wraps FFTW3 with an fftshift index map so callers always see
 symbols in centered order - index 0 is subcarrier -32
 (reference: src/fft.cpp:20-96); the inverse scales by 1/64 (fft.cpp:92-95).
 
-TPU-native formulation: a 64-pt DFT is tiny, so instead of an FFT
-butterfly (or jnp.fft, which needs complex dtypes the target backend
-doesn't support) each direction is a pair of real 64x64 matmuls on planar
-(re, im) data - batched symbols hit the MXU at full tilt, and the
-fftshift is folded into the matrices at construction, costing nothing.
+Formulation: a 64-pt DFT is tiny, so instead of an FFT butterfly (or
+jnp.fft on complex dtypes, which the planar convention avoids - see
+ops/cplx.py) each direction is a pair of real 64x64 matmuls on planar
+(re, im) data, at full f32 precision, with the fftshift folded into the
+matrices at construction, costing nothing.
 
   inverse:  time[n] = (1/64) * sum_k sym[k] e^{+2pi i n (k-32)/64}
   forward:  sym[k]  =          sum_n time[n] e^{-2pi i (k-32) n /64}
@@ -21,10 +21,13 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .cplx import CArr
+
+PRECISION = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,9 +51,14 @@ def _apply(x: CArr, inverse: bool) -> CArr:
     c, s = _matrices(inverse, str(re.dtype))
     cj = jnp.asarray(c)
     sj = jnp.asarray(s)
-    # (a + ib)(C + iS) with row-vector convention: out = x @ M
-    out_re = re @ cj - im @ sj
-    out_im = re @ sj + im @ cj
+    # (a + ib)(C + iS) with row-vector convention: out = x @ M; full f32
+    # (a lower precision is TF32 on a GPU: ~3 digits, too coarse for
+    # 64-QAM soft decisions)
+    def mm(a, m):
+        return jnp.matmul(a, m, precision=PRECISION)
+
+    out_re = mm(re, cj) - mm(im, sj)
+    out_im = mm(re, sj) + mm(im, cj)
     return out_re, out_im
 
 

@@ -7,7 +7,7 @@ permutation applied in 48-bit chunks at every rate
 for cbps > 48, but TX and RX agree. With bpsc=1 the second permutation is
 the identity, so: perm[k] = 3*(k % 16) + k // 16, out[perm[k]] = in[k].
 
-A fixed 48-permutation is a static gather on TPU.
+A fixed 48-permutation is a static gather.
 """
 
 from __future__ import annotations

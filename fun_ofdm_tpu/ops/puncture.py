@@ -7,7 +7,7 @@ Patterns replicated from the reference (src/puncturer.cpp:24-123):
 Depuncturing inserts the soft-erasure value 127 into the holes
 (src/puncturer.cpp:98-117).
 
-Both are static gathers/scatters - free on TPU.
+Both are static gathers/scatters.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def depuncture(soft: jnp.ndarray, rate: Rate) -> jnp.ndarray:
     """(..., m) soft bits -> (..., n) with ERASURE=127 in the holes.
 
     Built as a static per-column stack (the `.at[..., keep].set` form
-    lowers to a sequential while-scatter on TPU; a stack of static
+    can lower to a sequential while-scatter; a stack of static
     columns is a pure layout op)."""
     pat = _pattern(rate)
     if pat is None:

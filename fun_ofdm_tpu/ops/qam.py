@@ -92,7 +92,8 @@ def _axis_soft_decode(vals: jnp.ndarray, axis_bits: int, power: float) -> jnp.nd
     """(...,) axis values -> (..., axis_bits) soft confidences 0..255."""
     _, scale_d, amp0 = _axis_params(axis_bits, power)
     # C double->int conversion truncates toward zero (reference: qam.h:112).
-    # Precision follows the input dtype (f32 on TPU; f64 in x64 CPU tests).
+    # Precision follows the input dtype (f32 on the device path; f64 in
+    # x64 CPU tests).
     pt = jnp.trunc(vals * scale_d).astype(jnp.int32)
     flip = jnp.ones_like(pt)
     amp = amp0

@@ -6,7 +6,7 @@ XORs the feedback bit into that byte's least-significant bit only
 scrambles per bit) but self-inverse, and TX/RX agree.
 
 Because the LFSR feedback never depends on the data, the whole operation is
-an XOR with a precomputed keystream - O(1) depth on TPU, no scan needed.
+an XOR with a precomputed keystream - O(1) depth, no scan needed.
 The keystream has period 127.
 """
 

@@ -27,17 +27,19 @@ odd step (viterbi.cpp:209: `i9 <= nbits/2-1`); we replicate by truncating
 to an even step count. All 802.11a frame sizes are even so this never
 triggers in practice.
 
-Two execution strategies:
-  * `viterbi_decode` - lax.scan over time, vectorized over (batch, 32)
-    butterflies. Exact, simple; the baseline.
-  * a Pallas TPU kernel (ops/viterbi_pallas.py) that runs the whole
-    trellis in VMEM - the production path.
+Execution strategies (viterbi_decode dispatches):
+  * `viterbi_decode_scan` - lax.scan over time, vectorized over (batch,
+    32) butterflies. Exact, portable; the plain reference and the CPU
+    path.
+  * a GPU kernel through Pallas's Triton route (ops/viterbi_triton.py)
+    that loops over time inside one launch - the GPU path.
+  * `viterbi_decode_blocked` - the block-overlap time-parallel decode
+    around either exact decoder, with a merge guard.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -107,36 +109,38 @@ def _acs_step(metrics: jnp.ndarray, s0: jnp.ndarray, s1: jnp.ndarray):
     return new, dec
 
 
-def default_impl() -> str:
-    """'pallas' on TPU, 'scan' elsewhere; FUN_OFDM_VITERBI overrides."""
-    env = os.environ.get("FUN_OFDM_VITERBI")
-    if env:
-        return env
-    dev = jax.config.jax_default_device
-    platform = dev.platform if dev is not None else jax.default_backend()
-    return "pallas" if platform == "tpu" else "scan"
+#: exact decoders (bit-exact with each other and the reference)
+EXACT_IMPLS = ("scan", "triton")
+
+#: merge-guard margin: bits excluded from each end of the doubly-decoded
+#: cut region (each window's outermost bits are unreliable by design -
+#: see viterbi_decode_blocked). 40 > the typical survivor-merge distance
+#: of ~5 constraint lengths = 35 steps; the guarded overlap at the default
+#: warmup=128 still leaves a 176-bit compared region.
+_GUARD_TRIM = 40
 
 
-#: below this many data bits the scan path wins (kernel launch overhead)
-PALLAS_MIN_NBITS = 64
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def viterbi_decode(soft: jnp.ndarray, nbits: int,
                    impl: str | None = None,
                    nbits_dynamic: jnp.ndarray | None = None,
                    return_exact: bool = False):
-    """Decode soft symbols to bits (dispatches to the best backend impl).
+    """Decode soft symbols to bits.
 
     soft:  (..., 2*(nbits+6)) int32 soft coded bits (0..255; >=128 leans 1).
     nbits: number of data bits to output (static upper bound).
-    impl:  'scan' | 'pallas' | 'pallas-blocked' | None (auto: Pallas
-           kernel on TPU for non-trivial trellises, lax.scan otherwise).
-           'scan' and 'pallas' are bit-exact; 'pallas-blocked' is the
-           block-overlap time-parallel kernel (~10x lower latency at
-           streaming batch sizes). Its block splices rely on survivor
-           merges; pass return_exact=True to get the per-element
-           merge-agreement flag and re-decode flagged elements exactly
-           (see viterbi_pallas.viterbi_decode_pallas_blocked).
+    impl:  'scan' | 'triton' | 'blocked' | None. None picks the exact
+           decoder of the platform (utils/platform.exact_viterbi: the
+           Triton kernel on a GPU, the scan elsewhere). 'scan' and
+           'triton' are bit-exact; 'triton' raises where there is no GPU.
+           'blocked' is the block-overlap time-parallel decode around the
+           platform's exact decoder (viterbi_decode_blocked); its splices
+           rely on survivor merges, so pass return_exact=True to get the
+           per-element merge-agreement flag and re-decode flagged
+           elements exactly.
     nbits_dynamic: optional traced (...,) per-element data-bit counts
            <= nbits. Trellis steps past an element's count produce zero
            decisions, so the chainback stays in state 0 until the element's
@@ -144,30 +148,25 @@ def viterbi_decode(soft: jnp.ndarray, nbits: int,
            of that length (viterbi.cpp:193-194). Output bits past an
            element's count are unspecified.
     return_exact: also return a (...,) bool flag - True where the result
-           carries the bit-exactness guarantee (always True for
-           scan/pallas; the blocked kernel's merge guard otherwise).
+           carries the bit-exactness guarantee (always True for the exact
+           impls; the blocked decode's merge guard otherwise).
     Returns (..., nbits) int32 decoded bits (plus the flag if requested).
     """
-    impl = impl or default_impl()
-    if impl == "pallas-blocked" and nbits >= PALLAS_MIN_NBITS:
-        from . import viterbi_pallas
+    from ..utils import platform
 
-        if default_impl() != "pallas":
-            # CPU/test rigs: the compiled-kernel fast path doesn't apply;
-            # fall back to the exact scan (blocked is a TPU latency
-            # optimization, its interpret mode is far slower than scan)
-            bits = viterbi_decode_scan(soft, nbits,
-                                       nbits_dynamic=nbits_dynamic)
-            if return_exact:
-                return bits, jnp.ones(bits.shape[:-1], bool)
-            return bits
-        return viterbi_pallas.viterbi_decode_pallas_blocked(
-            soft, nbits, nbits_dynamic=nbits_dynamic,
-            return_merge_ok=return_exact)
-    if impl in ("pallas", "pallas-blocked") and nbits >= PALLAS_MIN_NBITS:
-        from . import viterbi_pallas
+    impl = impl or platform.exact_viterbi()
+    if impl not in EXACT_IMPLS + ("blocked",):
+        raise ValueError(f"unknown Viterbi impl {impl!r}")
+    if impl == "triton":
+        platform.require_gpu("the Triton Viterbi kernel")
+    if impl == "blocked":
+        return viterbi_decode_blocked(soft, nbits,
+                                      nbits_dynamic=nbits_dynamic,
+                                      return_merge_ok=return_exact)
+    if impl == "triton":
+        from . import viterbi_triton
 
-        bits = viterbi_pallas.viterbi_decode_pallas(
+        bits = viterbi_triton.viterbi_decode_triton(
             soft, nbits, nbits_dynamic=nbits_dynamic)
     else:
         bits = viterbi_decode_scan(soft, nbits, nbits_dynamic=nbits_dynamic)
@@ -177,34 +176,53 @@ def viterbi_decode(soft: jnp.ndarray, nbits: int,
 
 
 def viterbi_decode_scan(soft: jnp.ndarray, nbits: int,
-                        nbits_dynamic: jnp.ndarray | None = None
-                        ) -> jnp.ndarray:
-    """lax.scan trellis (exact, portable baseline impl)."""
+                        nbits_dynamic: jnp.ndarray | None = None,
+                        unroll: int = 1) -> jnp.ndarray:
+    """lax.scan trellis (exact, portable baseline impl).
+
+    unroll: trellis steps per scan iteration (lax.scan's unroll)."""
     soft = jnp.asarray(soft, jnp.int32)
+    steps_vec = None
+    if nbits_dynamic is not None:
+        nb = jnp.broadcast_to(jnp.asarray(nbits_dynamic, jnp.int32),
+                              soft.shape[:-1])
+        steps_vec = ((nb + (K - 1)) // 2) * 2
+    return _scan_lanes(soft, steps_vec, None, nbits, unroll)
+
+
+def _scan_lanes(soft: jnp.ndarray, steps_vec, init_vec, nbits: int,
+                unroll: int = 1) -> jnp.ndarray:
+    """The scan decoder over independent lanes.
+
+    soft: (..., >= 2*(nbits+6)) int32. steps_vec: None (every lane runs
+    the full even-truncated trellis) or (...,) even per-lane step counts.
+    init_vec: None (exact frame-start init everywhere) or (...,) int32,
+    1 = exact init, 0 = uniform init (a block-overlap window starting
+    mid-trellis).
+    """
     total_steps = nbits + (K - 1)
     steps = (total_steps // 2) * 2  # reference drops a trailing odd step
     batch_shape = soft.shape[:-1]
 
-    metrics0 = jnp.full(batch_shape + (NUMSTATES,), 63, jnp.int32)
-    metrics0 = metrics0.at[..., 0].set(0)
-
-    if nbits_dynamic is None:
-        pairs = soft[..., : 2 * steps].reshape(*batch_shape, steps, 2)
-        pairs = jnp.moveaxis(pairs, -2, 0)  # (steps, ..., 2)
-
-        def fwd(metrics, pair):
-            new, dec = _acs_step(metrics, pair[..., 0], pair[..., 1])
-            return new, dec
-
-        _, decisions = jax.lax.scan(fwd, metrics0, pairs)  # (steps, ..., 64)
+    state_idx = jnp.arange(NUMSTATES, dtype=jnp.int32)
+    if init_vec is None:
+        metrics0 = jnp.where(state_idx == 0, 0, 63)
+        metrics0 = jnp.broadcast_to(metrics0, batch_shape + (NUMSTATES,))
     else:
-        # per-element even-truncated step counts; masked steps leave the
-        # metrics untouched and record zero decisions
-        nb = jnp.broadcast_to(jnp.asarray(nbits_dynamic, jnp.int32),
-                              batch_shape)
-        steps_vec = ((nb + (K - 1)) // 2) * 2
-        pairs = soft[..., : 2 * steps].reshape(*batch_shape, steps, 2)
-        pairs = jnp.moveaxis(pairs, -2, 0)
+        exact = jnp.asarray(init_vec)[..., None] == 1
+        metrics0 = jnp.where(exact & (state_idx == 0), 0, 63)
+    metrics0 = metrics0.astype(jnp.int32)
+
+    pairs = soft[..., : 2 * steps].reshape(*batch_shape, steps, 2)
+    pairs = jnp.moveaxis(pairs, -2, 0)  # (steps, ..., 2)
+    if steps_vec is None:
+        def fwd(metrics, pair):
+            return _acs_step(metrics, pair[..., 0], pair[..., 1])
+
+        _, decisions = jax.lax.scan(fwd, metrics0, pairs, unroll=unroll)
+    else:
+        # masked steps leave the metrics untouched and record zero
+        # decisions
         t_idx = jnp.arange(steps, dtype=jnp.int32)
 
         def fwd(metrics, xs):
@@ -214,7 +232,8 @@ def viterbi_decode_scan(soft: jnp.ndarray, nbits: int,
             return (jnp.where(live, new, metrics),
                     jnp.where(live, dec, 0))
 
-        _, decisions = jax.lax.scan(fwd, metrics0, (t_idx, pairs))
+        _, decisions = jax.lax.scan(fwd, metrics0, (t_idx, pairs),
+                                    unroll=unroll)
 
     # decisions for steps in [steps, total_steps) were never computed;
     # the reference leaves them zeroed (viterbi.cpp:193-194)
@@ -232,9 +251,144 @@ def viterbi_decode_scan(soft: jnp.ndarray, nbits: int,
         return new_state, k
 
     state0 = jnp.zeros(batch_shape, jnp.int32)
-    _, ks = jax.lax.scan(back, state0, rev)  # ks[i] = k at t = total-1-i
+    _, ks = jax.lax.scan(back, state0, rev, unroll=unroll)
     ks = ks[::-1]  # ks[t] = decision bit at step t
     return jnp.moveaxis(ks[K - 1 : K - 1 + nbits], 0, -1)
+
+
+def decode_lanes(soft: jnp.ndarray, steps_vec: jnp.ndarray,
+                 init_vec: jnp.ndarray, nbits: int, impl: str,
+                 interpret: bool = False) -> jnp.ndarray:
+    """Exact decode of independent trellis lanes with per-lane step
+    counts and init (the block-overlap decode's building block).
+
+    soft (..., >= 2*(nbits+6)), steps_vec/init_vec (...,) int32 ->
+    (..., nbits); bits at or past a lane's step count are zero.
+    impl: 'scan' or 'triton' (interpret: the Pallas interpreter)."""
+    if impl == "triton":
+        from . import viterbi_triton
+
+        return viterbi_triton.decode(soft, steps_vec, init_vec, nbits,
+                                     interpret=interpret)
+    steps_vec = jnp.asarray(steps_vec, jnp.int32)
+    bits = _scan_lanes(jnp.asarray(soft, jnp.int32), steps_vec, init_vec,
+                       nbits)
+    t_idx = jnp.arange(K - 1, K - 1 + nbits, dtype=jnp.int32)
+    return jnp.where(t_idx < steps_vec[..., None], bits, 0)
+
+
+def viterbi_decode_blocked(soft: jnp.ndarray, nbits: int,
+                           n_blocks: int = 16, warmup: int = 128,
+                           nbits_dynamic: jnp.ndarray | None = None,
+                           return_merge_ok: bool = False,
+                           impl: str | None = None,
+                           interpret: bool = False):
+    """Block-overlap time-parallel decode (SURVEY.md section 7 hard part
+    #1) around an exact lane decoder.
+
+    Same contract as viterbi_decode (soft (..., 2*(nbits+6)) -> (...,
+    nbits) bits). The trellis is split into n_blocks time blocks decoded
+    as independent lanes; each block decodes its span plus a
+    `warmup`-step lead-in (uniform metric init - the path metrics merge
+    to the true survivor within ~5 constraint lengths) and a
+    `warmup`-step tail (a truncated chainback from an arbitrary state
+    merges the same way). Block 0 keeps the exact frame-start init; the
+    last live block inherits the exact end-of-frame chainback. The
+    sequential depth drops ~n_blocks-fold at 2*warmup/span extra work.
+
+    Splice exactness is guarded, not assumed: around every block cut the
+    2*warmup-step region [b*tb - wf, b*tb + wc) is decoded independently
+    by both adjacent blocks, and with return_merge_ok=True the per-frame
+    agreement over all cut regions is returned. A forward (warm-up) merge
+    failure corrupts a block's lead-in; a reverse (truncated-chainback)
+    merge failure corrupts a block's tail - both land inside a compared
+    region, so a single-block merge failure flags the frame unless its
+    neighbor independently fails onto identical wrong bits across the
+    2*warmup-bit window (vanishing at warmup=128; constructible only at
+    degenerate warmups). Callers (runtime/chain.py) re-decode flagged
+    frames exactly, restoring a bit-exact end-to-end contract.
+
+    impl: the exact lane decoder, 'scan' or 'triton' (None: the
+    platform's, utils/platform.exact_viterbi). interpret: run the Triton
+    kernel in the Pallas interpreter (CPU tests).
+    """
+    from ..utils import platform
+
+    impl = impl or platform.exact_viterbi()
+    if impl == "triton" and not interpret:
+        platform.require_gpu("the Triton Viterbi kernel")
+    soft = jnp.asarray(soft, jnp.int32)
+    batch_shape = soft.shape[:-1]
+    if nbits_dynamic is None:
+        nb = jnp.full(batch_shape, nbits, jnp.int32)
+    else:
+        nb = jnp.broadcast_to(jnp.asarray(nbits_dynamic, jnp.int32),
+                              batch_shape)
+    steps_vec = ((nb + (K - 1)) // 2) * 2
+    total_steps = nbits + (K - 1)
+    n_blocks = max(1, min(n_blocks, total_steps // max(2 * warmup, 2)))
+
+    flat = soft.reshape(-1, soft.shape[-1])
+    nf = flat.shape[0]
+    tb = _cdiv(total_steps, 2 * n_blocks) * 2     # even block span
+    wf = _cdiv(warmup, 2) * 2
+    wc = wf
+    win = wf + tb + wc                            # window trellis steps
+    # emit the FULL window (lead-in + span + tail): the tail bits cost
+    # nothing (the chainback computes every window step anyway) and give
+    # the merge guard a 2*warmup-wide doubly-decoded region at each cut
+    nbits_win = win
+
+    # per-block window offsets into the trellis (block 0 starts exact);
+    # + (K-1) steps of padding: the decoded-bit slice for nbits_win = win
+    # reads K-1 steps past the window (dead, zero-decision steps)
+    offs = np.maximum(0, np.arange(n_blocks) * tb - wf).astype(np.int32)
+    lane_len = 2 * (win + K - 1)
+    flat_pad = jnp.pad(flat, ((0, 0), (0, lane_len)))
+    wins = jnp.stack([
+        jax.lax.dynamic_slice_in_dim(flat_pad, 2 * int(o), lane_len, axis=1)
+        for o in offs], axis=1)                   # (F, n_blocks, lane_len)
+
+    steps_w = jnp.clip(steps_vec.reshape(-1)[:, None] - offs[None, :],
+                       0, win)                    # (F, n_blocks) even
+    init_w = jnp.zeros((nf, n_blocks), jnp.int32).at[:, 0].set(1)
+
+    bits = decode_lanes(wins, steps_w, init_w, nbits_win, impl,
+                        interpret=interpret)      # (F, n_blocks, win)
+
+    # splice: frame bit n lives in block b = n // tb at local index
+    # n - b*tb (+wf lead for blocks after the first)
+    n_idx = np.arange(nbits)
+    b_idx = (n_idx // tb).astype(np.int32)
+    m_idx = (n_idx - b_idx * tb + np.where(b_idx > 0, wf, 0)).astype(np.int32)
+    out = bits[:, b_idx, m_idx].reshape(*batch_shape, nbits)
+    if not return_merge_ok:
+        return out
+
+    # merge guard: compare the two independent decodes of the
+    # doubly-decoded region around every cut, [b*tb - wf, b*tb + wc)
+    # (block b-1's span end + truncation tail vs block b's lead-in +
+    # span start). The outermost `trim` bits on each side are each
+    # block's by-construction-unreliable margins (block b's first bits
+    # sit right after its uniform metric init; block b-1's last bits are
+    # its chainback truncation start, garbage until the backward merge
+    # settles, typically within ~5K = 35 steps) — comparing them would
+    # flag healthy frames constantly, so they are excluded. Masked to
+    # each frame's real bit extent.
+    ov = wf + wc
+    trim = min(_GUARD_TRIM, ov // 4)
+    nb_f = jnp.maximum(steps_vec.reshape(-1) - (K - 1), 0)  # real data bits
+    live_hi = jnp.minimum(nb_f, nbits)[:, None]
+    mism = jnp.zeros((nf,), bool)
+    for b in range(1, n_blocks):
+        lo = b * tb - wf                       # overlap start (trellis bit)
+        prev_start = lo - int(offs[b - 1])     # local index in block b-1
+        sl = slice(trim, ov - trim)
+        prev = bits[:, b - 1, prev_start:prev_start + ov][:, sl]
+        cur = bits[:, b, :ov][:, sl]
+        live = (lo + np.arange(ov)[sl])[None, :] < live_hi
+        mism = mism | jnp.any((prev != cur) & live, axis=-1)
+    return out, (~mism).reshape(batch_shape)
 
 
 def conv_decode_bytes(soft: jnp.ndarray, nbits: int) -> jnp.ndarray:

@@ -1,22 +1,24 @@
 """Multi-host initialization and global-mesh construction.
 
 The reference runs on one host (its only interconnect is GbE to the USRP,
-reference src/usrp.cpp:103,129). The TPU deployment target is a multi-host
-pod slice: each host process drives its local chips, `jax.distributed`
-links the processes, and one global (channel, time) Mesh spans every chip
-with XLA collectives riding ICI (and DCN between hosts).
+reference src/usrp.cpp:103,129). Across several hosts, each host process
+drives its local cards, `jax.distributed` links the processes, and one
+global (channel, time) Mesh spans every card with XLA collectives
+between them (NCCL on GPUs). Four cards of one host need none of this:
+one process drives them all.
 
 Typical launch (same program on every host):
 
     from fun_ofdm_tpu.parallel import distributed
-    distributed.initialize()            # env-driven on TPU pods
+    distributed.initialize(coordinator_address="host0:1234",
+                           num_processes=2, process_id=rank)
     mesh = distributed.global_mesh()    # all processes' devices
     streams = distributed.shard_host_capture(mesh, local_re, local_im)
     out = stream_shard.sharded_receive(streams, rate, length, mesh, ...)
 
-On CPU test rigs, pass coordinator_address/num_processes/process_id
-explicitly (see tests/test_multihost.py for the 2-process x 4-device
-harness).
+Nothing on a plain GPU host tells JAX of a cluster, so pass
+coordinator_address/num_processes/process_id explicitly (see
+tests/test_multihost.py for the 2-process x 4-device harness).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> None:
     """Bring up the JAX distributed runtime (idempotent).
 
-    On TPU pods all arguments come from the environment and this is just
-    `jax.distributed.initialize()`. On CPU/GPU rigs pass them explicitly.
+    Where a cluster environment describes the job, the arguments may be
+    omitted and this is just `jax.distributed.initialize()`; otherwise
+    pass them explicitly.
     Safe to call when already initialized (no-op) or single-process with
     no coordinator configured (also a no-op).
 

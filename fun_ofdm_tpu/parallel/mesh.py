@@ -1,7 +1,7 @@
 """Device-mesh helpers for the (channel, time) 2-D sharding layout.
 
 The reference's only parallelism is a 6-thread pipeline on one CPU
-(src/receiver_chain.cpp:58-95). The TPU-native scaling axes are different
+(src/receiver_chain.cpp:58-95). The device scaling axes are different
 and orthogonal to the algorithm:
 
   * `channel` - independent RF channels (and/or independent captures):

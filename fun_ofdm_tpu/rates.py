@@ -1,6 +1,6 @@
 """802.11a MCS rate table.
 
-TPU-native port of the reference rate table (reference: src/rates.h:21-250).
+Port of the reference rate table (reference: src/rates.h:21-250).
 Eleven rates: the eight standard 802.11a MCS plus the reference's three
 nonstandard entries (2/3-BPSK 0xE, 2/3-QPSK 0x6, 2/3-QAM16 0xA).
 

@@ -3,8 +3,8 @@
 The reference's usrp class (src/usrp.cpp:20-130) does three jobs: carry
 radio configuration (usrp_params, src/usrp.h:25-52), push TX bursts
 (send_burst_sync, src/usrp.cpp:91-114), and pull RX sample chunks
-(get_samples, src/usrp.cpp:125-130). With no radio hardware in the TPU
-build, those roles map to:
+(get_samples, src/usrp.cpp:125-130). With no radio hardware attached,
+those roles map to:
 
   * RadioParams       — the usrp_params equivalent (kept field-for-field so
                         reference users find their knobs; frequencies/gains

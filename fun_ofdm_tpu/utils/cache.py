@@ -1,10 +1,14 @@
 """Persistent XLA compilation cache wiring.
 
-The detect+decode megagraph plus the Pallas Viterbi kernels take minutes
-to compile cold on TPU; the reference has no such latency (its sim starts
-instantly, reference examples/test_sim.cpp:43). Enabling JAX's persistent
-compilation cache makes every run after the first start in seconds, which
-matters for the CLI examples (examples/*.py) and the benchmark harness.
+The detect+decode megagraph and the Viterbi kernels take a long time to
+compile cold; the reference has no such latency (its sim starts
+instantly, reference examples/test_sim.cpp:43). JAX's persistent
+compilation cache makes every run after the first start in seconds.
+
+Where the cache lives: `$JAX_COMPILATION_CACHE_DIR` when it is set (JAX
+reads it itself, and this module sets no other directory), otherwise
+`<repo>/.jax_cache`, a fixed path inside the checkout (the path is part
+of what makes a later run find the entries).
 
 Call enable_persistent_cache() before the first jit execution (bench.py,
 examples, and the Transmitter/Receiver API do this automatically).
@@ -16,45 +20,45 @@ import os
 
 _ENABLED = False
 
-#: env var overriding the cache location; set to "0"/"off" to disable
-ENV_VAR = "FUN_OFDM_TPU_COMPILE_CACHE"
+#: JAX's own cache-location variable; when set, it wins
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
 def default_cache_dir() -> str:
-    base = os.environ.get("XDG_CACHE_HOME",
-                          os.path.join(os.path.expanduser("~"), ".cache"))
-    return os.path.join(base, "fun_ofdm_tpu", "jax_cache")
+    """`<repo>/.jax_cache`: the checkout's own, git-ignored cache."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(repo, ".jax_cache")
 
 
-def enable_persistent_cache(path: str | None = None) -> str | None:
+def cache_dir() -> str:
+    """Where the persistent cache lives (see module docstring)."""
+    return os.environ.get(ENV_VAR) or default_cache_dir()
+
+
+def enable_persistent_cache() -> str | None:
     """Turn on the JAX persistent compilation cache (idempotent).
 
-    path: cache directory; default $FUN_OFDM_TPU_COMPILE_CACHE or
-    ~/.cache/fun_ofdm_tpu/jax_cache. Returns the directory used, or None
-    if caching was disabled via the env var.
+    Returns the directory used, or None when computation lands on the
+    CPU (see below).
     """
     global _ENABLED
-    env = os.environ.get(ENV_VAR)
-    if env is not None and env.lower() in ("0", "off", "false", ""):
+    # XLA:CPU caches AOT executables keyed WITHOUT host machine features;
+    # replaying an entry compiled on a different host emits "could lead to
+    # SIGILL" warnings and is a latent crash. The CPU backend also
+    # compiles fast, so the cache only serves the GPU path: skip it when
+    # computation lands on the CPU (tests, the virtual-device dry run).
+    from .platform import on_gpu
+    if not on_gpu():
         return None
-    if path is None:
-        path = env or default_cache_dir()
+    path = cache_dir()
     if _ENABLED:
         return path
     import jax
 
-    # XLA:CPU caches AOT executables keyed WITHOUT host machine features;
-    # replaying an entry compiled on a different host emits "could lead to
-    # SIGILL" warnings and is a latent crash (seen in MULTICHIP_r02). The
-    # CPU backend also compiles fast, so the cache only protects the
-    # accelerator path: skip it when computation lands on CPU (the
-    # multichip dryrun / virtual-device test rig).
-    from .platform import default_platform
-    if default_platform() == "cpu":
-        return None
-
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if not os.environ.get(ENV_VAR):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     # cache everything, however small/fast - the win is aggregate startup
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)

@@ -5,7 +5,7 @@ commented-out over-budget warning (src/receiver_chain.cpp:84-92) and the
 sim's elapsed-time print (examples/test_sim.cpp:99-103). Here:
 
   * device_trace(): context manager around jax.profiler.trace — captures an
-    XLA/TPU trace viewable in TensorBoard/Perfetto (the real per-kernel
+    XLA device trace viewable in TensorBoard/Perfetto (the real per-kernel
     timeline the reference never had);
   * Timer: tiny named wall-clock accumulator for host-side harness loops;
   * ReceiverChain.stats carries per-pass device-call timings already.

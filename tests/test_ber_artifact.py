@@ -79,8 +79,8 @@ def test_rate_robustness_ordering(data):
 def test_detect_mode_present_and_clean_at_top_snr(data):
     """Full detect+decode PER must reach exactly 0 at the top SNR point:
     the round-2 artifact floored at 1/256 from the reference-geometry
-    96-sample LTS search window (fixed: ChainParams.lts_search=128,
-    docs/NOTES_r3.md); a recurrence means a detection regression."""
+    96-sample LTS search window (fixed: ChainParams.lts_search=128);
+    a recurrence means a detection regression."""
     det = _curves(data, "detect")
     assert det, "no detect-mode curves in artifact"
     for c in det:

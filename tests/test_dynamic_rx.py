@@ -2,7 +2,7 @@
 
 The reference receiver learns each frame's (rate, length) from its SIGNAL
 header at runtime (src/frame_decoder.cpp:72-88); these tests cover the
-TPU-native equivalent: per-frame dynamic lengths via masked Viterbi
+JAX equivalent: per-frame dynamic lengths via masked Viterbi
 trellises, right-aligned dynamic CRC, and the full detect -> header ->
 payload path. Dynamic decodes must be bit-identical to the static decode
 specialized at each frame's true length.
@@ -17,7 +17,7 @@ import pytest
 
 from fun_ofdm_tpu import Rate
 from fun_ofdm_tpu.models import frontend, ppdu, rx, tx
-from fun_ofdm_tpu.ops import convcode, crc32, viterbi, viterbi_pallas
+from fun_ofdm_tpu.ops import convcode, crc32, viterbi, viterbi_triton
 from fun_ofdm_tpu.rates import params_for
 
 
@@ -45,7 +45,7 @@ def test_viterbi_dynamic_matches_per_length_static(impl):
     soft_j = jnp.asarray(soft)
 
     if impl == "pallas":
-        got = np.asarray(viterbi_pallas.viterbi_decode_pallas(
+        got = np.asarray(viterbi_triton.viterbi_decode_triton(
             soft_j, nbits_max, interpret=True,
             nbits_dynamic=jnp.asarray(lengths)))
     else:

@@ -83,7 +83,7 @@ def test_sim_loopback_100_frames():
 
 def test_first_k_true_blocked_matches_onehot():
     """The blocked two-level first-k (large k*n path) is exact vs the
-    one-hot MXU form, including: sparse events, events in adjacent
+    one-hot matmul form, including: sparse events, events in adjacent
     blocks, empty tails, and the k > count validity edge."""
     from fun_ofdm_tpu.models.frontend import (_first_k_true,
                                               _first_k_true_blocked)

@@ -72,7 +72,7 @@ def test_loopback_batched():
 
 
 def test_loopback_complex64():
-    """The TPU path (f32) must still decode cleanly."""
+    """The device path (f32) must still decode cleanly."""
     rate = Rate.RATE_3_4_QAM64
     payload = _payload(500, seed=7)
     frame = tx.build_frame(jnp.asarray(payload), rate, dtype=jnp.complex64)

@@ -435,7 +435,7 @@ def test_chain_viterbi_impl_knob():
                                       Rate.RATE_1_2_QPSK))
     stream = np.zeros(8192, np.complex64)
     stream[90:90 + frame.size] = frame
-    for impl in ("scan", "pallas-blocked"):
+    for impl in ("scan", "blocked"):
         chain = ReceiverChain(rates=(Rate.RATE_1_2_QPSK,), max_length=30,
                               viterbi_impl=impl)
         assert chain.viterbi_impl == impl
@@ -722,8 +722,8 @@ def test_chain_fuzz_matches_anyrate_capture_oracle(seed):
 def test_chain_multichannel_streaming():
     """channels=C: one chain, C synchronized streams, ONE device dispatch
     per superstep for all channels; exactly-once delivery per channel
-    with channel-tagged packets (TPU-native extension: the streaming
-    analogue of the capture path's multi-channel geometry)."""
+    with channel-tagged packets (an extension beyond the reference: the
+    streaming analogue of the capture path's multi-channel geometry)."""
     rng = np.random.default_rng(18)
     rates = (Rate.RATE_1_2_QPSK, Rate.RATE_3_4_QAM16)
     plan = {0: [(300, rates[0]), (5000, rates[1])],

@@ -1,10 +1,11 @@
-"""Pallas Viterbi kernel: bit-exactness vs the lax.scan trellis.
+"""Pallas (Triton route) Viterbi kernel: bit-exactness vs the lax.scan
+trellis.
 
-Runs the kernel in interpreter mode (tests run on CPU; the compiled path is
-exercised on hardware by bench.py and was validated bit-exact on a real
-TPU). The scan path is itself validated bit-exactly against the compiled
-reference decoder in test_golden_reference.py, so transitivity gives
-kernel == reference.
+Runs the kernel in interpreter mode (tests run on CPU; the compiled path
+is checked bit-exact on the GPU by chip_smoke.py, and
+test_viterbi_lowering.py lowers it for CUDA here). The scan path is itself
+validated bit-exactly against the compiled reference decoder in
+test_golden_reference.py, so transitivity gives kernel == reference.
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fun_ofdm_tpu.ops import convcode, viterbi, viterbi_pallas
+from fun_ofdm_tpu.ops import convcode, viterbi, viterbi_triton
 
 
 def _noisy_soft(rng, batch, nbits):
@@ -27,7 +28,7 @@ def test_pallas_matches_scan(nbits):
     soft = jnp.asarray(_noisy_soft(rng, (3,), nbits))
     ref = np.asarray(viterbi.viterbi_decode_scan(soft, nbits))
     got = np.asarray(
-        viterbi_pallas.viterbi_decode_pallas(soft, nbits, interpret=True))
+        viterbi_triton.viterbi_decode_triton(soft, nbits, interpret=True))
     np.testing.assert_array_equal(ref, got)
 
 
@@ -41,7 +42,7 @@ def test_pallas_erasure_and_extremes():
         s = jnp.asarray(soft)
         ref = np.asarray(viterbi.viterbi_decode_scan(s, nbits))
         got = np.asarray(
-            viterbi_pallas.viterbi_decode_pallas(s, nbits, interpret=True))
+            viterbi_triton.viterbi_decode_triton(s, nbits, interpret=True))
         np.testing.assert_array_equal(ref, got)
 
 
@@ -53,14 +54,16 @@ def test_pallas_custom_vmap_collapses_batch():
 
     ref = np.asarray(viterbi.viterbi_decode_scan(soft, nbits))
     fn = jax.vmap(jax.vmap(
-        lambda s: viterbi_pallas.viterbi_decode_pallas(
+        lambda s: viterbi_triton.viterbi_decode_triton(
             s, nbits, interpret=True)))
     got = np.asarray(fn(soft))
     np.testing.assert_array_equal(ref, got)
 
 
 def test_dispatcher_selects_scan_on_cpu():
-    assert viterbi.default_impl() == "scan"
+    from fun_ofdm_tpu.utils import platform
+
+    assert platform.exact_viterbi() == "scan"
     rng = np.random.default_rng(5)
     soft = jnp.asarray(_noisy_soft(rng, (1,), 100))
     np.testing.assert_array_equal(
@@ -81,8 +84,9 @@ def test_blocked_matches_scan_clean_and_noisy(nbits, n_blocks):
                        0, 255)
         s = jnp.asarray(soft)
         ref = np.asarray(viterbi.viterbi_decode_scan(s, nbits))
-        got = np.asarray(viterbi_pallas.viterbi_decode_pallas_blocked(
-            s, nbits, n_blocks=n_blocks, warmup=96, interpret=True))
+        got = np.asarray(viterbi.viterbi_decode_blocked(
+            s, nbits, n_blocks=n_blocks, warmup=96, impl="triton",
+            interpret=True))
         np.testing.assert_array_equal(ref, got)
 
 
@@ -102,8 +106,8 @@ def test_blocked_merge_guard_flags_every_mismatch():
                    0, 255)
     s = jnp.asarray(soft)
     ref = np.asarray(viterbi.viterbi_decode_scan(s, nbits))
-    got, ok = viterbi_pallas.viterbi_decode_pallas_blocked(
-        s, nbits, n_blocks=8, warmup=2, interpret=True,
+    got, ok = viterbi.viterbi_decode_blocked(
+        s, nbits, n_blocks=8, warmup=2, impl="triton", interpret=True,
         return_merge_ok=True)
     got, ok = np.asarray(got), np.asarray(ok)
     differs = (got != ref).any(axis=-1)
@@ -118,8 +122,8 @@ def test_blocked_merge_guard_flags_every_mismatch():
     soft2 = np.clip(coded * 255 + rng.integers(-60, 61, coded.shape), 0, 255)
     s2 = jnp.asarray(soft2)
     ref2 = np.asarray(viterbi.viterbi_decode_scan(s2, nbits))
-    got2, ok2 = viterbi_pallas.viterbi_decode_pallas_blocked(
-        s2, nbits, n_blocks=8, warmup=96, interpret=True,
+    got2, ok2 = viterbi.viterbi_decode_blocked(
+        s2, nbits, n_blocks=8, warmup=96, impl="triton", interpret=True,
         return_merge_ok=True)
     np.testing.assert_array_equal(np.asarray(got2), ref2)
     assert np.asarray(ok2).all()
@@ -142,8 +146,8 @@ def test_blocked_dynamic_lengths():
     s = jnp.asarray(soft)
     ref = np.asarray(viterbi.viterbi_decode_scan(
         s, nbits, nbits_dynamic=jnp.asarray(lens)))
-    got = np.asarray(viterbi_pallas.viterbi_decode_pallas_blocked(
-        s, nbits, n_blocks=6, warmup=96, interpret=True,
+    got = np.asarray(viterbi.viterbi_decode_blocked(
+        s, nbits, n_blocks=6, warmup=96, impl="triton", interpret=True,
         nbits_dynamic=jnp.asarray(lens)))
     for i, ln in enumerate(lens):
         np.testing.assert_array_equal(ref[i, :ln], got[i, :ln])

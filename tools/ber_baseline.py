@@ -113,7 +113,7 @@ def write_markdown(data: dict) -> None:
     lines = [
         "# BER / PER baseline",
         "",
-        "Statistical baseline of the TPU-native 802.11a PHY under synthetic",
+        "Statistical baseline of this 802.11a PHY under synthetic",
         "channels (the reference publishes no curves of its own - SURVEY.md",
         "section 6). Generated by `tools/ber_baseline.py`; raw counters in",
         "`docs/ber_data.json`; waterfall plot by `tools/ber_plot.py`:",

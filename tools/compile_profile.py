@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Profile XLA compile time of the RX pipeline's subgraphs on TPU.
+"""Profile XLA compile time of the RX pipeline's subgraphs.
 
-Round-2 diagnostic for the 7m40s cold-compile of bench.py (VERDICT weak #1,
-#5): times `jit(...).lower().compile()` for each stage in isolation so the
-compile-time hot spot is attributable. No persistent cache (we want true
-compile cost). Usage: python tools/compile_profile.py [part ...]
+Times `jit(...).lower().compile()` for each stage in isolation on the
+default device, so the compile-time hot spot is attributable. No
+persistent cache (we want true compile cost).
+
+Usage: python tools/compile_profile.py [part ...]
 Parts: detect headers decode viterbi capture
 """
 
@@ -35,7 +36,7 @@ def main() -> None:
     import jax.numpy as jnp
 
     from fun_ofdm_tpu.models import frontend, rx
-    from fun_ofdm_tpu.ops import correlate, viterbi_pallas
+    from fun_ofdm_tpu.ops import correlate, viterbi
     from fun_ofdm_tpu.rates import Rate, params_for
 
     rate = Rate.RATE_3_4_QAM16
@@ -81,9 +82,8 @@ def main() -> None:
         nbits += (-nbits) % params_for(rate).dbps
         soft = jax.ShapeDtypeStruct((channels, frames_per_channel,
                                      2 * (nbits + 6)), jnp.int32)
-        fn = jax.jit(functools.partial(
-            viterbi_pallas.viterbi_decode_pallas, nbits=nbits))
-        timed(f"viterbi_pallas (nbits={nbits})",
+        fn = jax.jit(functools.partial(viterbi.viterbi_decode, nbits=nbits))
+        timed(f"viterbi (nbits={nbits})",
               lambda: fn.lower(soft).compile())
 
     if "capture" in parts:

@@ -2,7 +2,7 @@
 """Generate markdown API documentation from the package's docstrings.
 
 The reference ships a Doxygen target (/root/reference/docs/doxygen,
-CMakeLists.txt `doc`); this is the equivalent for the TPU-native package:
+CMakeLists.txt `doc`); this is the equivalent for this package:
 one markdown page per module under docs/api/, built purely from the
 installed sources (no third-party doc tooling - the image has none).
 

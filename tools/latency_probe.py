@@ -31,9 +31,7 @@ def main() -> None:
     args = ap.parse_args()
 
     from fun_ofdm_tpu.utils.cache import enable_persistent_cache
-    enable_persistent_cache(os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
+    enable_persistent_cache()
 
     import jax.numpy as jnp
 

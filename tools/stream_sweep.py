@@ -3,7 +3,7 @@
 
 Measures ReceiverChain samples/s on a dense single-rate stream across
 (strides_per_step, ingest_dtype) configurations; results inform the
-bench.py parity/tuned configs and ChainParams defaults (docs/NOTES_r3.md).
+bench.py parity/tuned configs and ChainParams defaults.
 
 Usage: python tools/stream_sweep.py [--configs K:dtype,...] [--tiles N]
 """
@@ -37,9 +37,7 @@ def main() -> None:
     args = ap.parse_args()
 
     from fun_ofdm_tpu.utils.cache import enable_persistent_cache
-    enable_persistent_cache(os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
+    enable_persistent_cache()
 
     import jax.numpy as jnp
 

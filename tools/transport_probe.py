@@ -2,9 +2,8 @@
 """Measure host<->device transfer + dispatch latency on this transport.
 
 The streaming ReceiverChain's operating point is set by per-transaction
-latency, not bandwidth (docs/NOTES_r2.md). Round 2 chose a 64 KB fetch pad
-from a two-point table (16 KB / 4 MB); this probe fills in the curve so
-the pad and stride are chosen from data.
+latency as much as by bandwidth; this probe measures the curve so the
+fetch pad (FETCH_PAD_BYTES) and superstep stride are chosen from data.
 
 Usage: python tools/transport_probe.py [--reps N]
 Prints one JSON line per measurement.
